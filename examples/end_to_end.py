@@ -21,7 +21,7 @@ sys.path.insert(0, str(REPO))
 import jax
 
 try:
-    # Harmless on TPU; gives the demo an 8-device mesh on CPU.
+    # Harmless on an accelerator; gives the demo an 8-device mesh on CPU.
     jax.config.update('jax_num_cpu_devices', 8)
 except RuntimeError:
     pass  # Backend already initialized by the embedding process.

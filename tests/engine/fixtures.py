@@ -1,9 +1,8 @@
 """Shared engine test fixtures: a FontCollection built over the DejaVu fonts
-bundled with matplotlib (always present in this environment)."""
+kept in tests/assets/fonts (license: tests/assets/fonts/LICENSE_DEJAVU)."""
 import functools
 import string
-
-import matplotlib
+from pathlib import Path
 
 from vkit_tpu.engine.font import (
     FontCollection,
@@ -18,9 +17,8 @@ ASCII_CHARS = sorted(set(string.ascii_letters + string.digits + string.punctuati
 
 @functools.lru_cache(maxsize=1)
 def get_dejavu_font_files():
-    import glob
-    ttf_dir = matplotlib.get_data_path() + '/fonts/ttf'
-    files = sorted(glob.glob(ttf_dir + '/DejaVuSans*.ttf'))
+    ttf_dir = Path(__file__).resolve().parent.parent / 'assets' / 'fonts'
+    files = sorted(str(f) for f in ttf_dir.glob('DejaVuSans*.ttf'))
     sans = [f for f in files if 'Mono' not in f and 'Display' not in f]
     mono = [f for f in files if 'Mono' in f]
     return sans, mono

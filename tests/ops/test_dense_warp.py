@@ -1,4 +1,4 @@
-"""Dense displacement-field MXU warp + batched grid-distortion bridge."""
+"""Dense displacement-field two-pass warp + batched grid-distortion bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np

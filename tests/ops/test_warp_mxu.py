@@ -1,24 +1,114 @@
-"""Two-pass MXU warp + Pallas row-shift kernel (interpret mode on CPU)."""
+"""Two-pass warp + the plain XLA line primitives (row shift, banded
+two-neighbour resample) against float64 numpy references."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkit_tpu.ops.pallas_kernels import row_shift_auto
 from vkit_tpu.ops.warp import warp_affine_np
-from vkit_tpu.ops.warp_mxu import warp_affine_batch_mxu
+from vkit_tpu.ops.warp_banded import banded_line_resample
+from vkit_tpu.ops.warp_mxu import row_shift, warp_affine_batch_mxu
 
 
-def test_row_shift():
+def _row_shift_ref(x, starts, out_width, border_value):
+    """Per-row loop: out[..., j] = x[..., s + j], border outside."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.full(x.shape[:-1] + (out_width,), border_value)
+    width = x.shape[-1]
+    for bi in range(x.shape[0]):
+        for li in range(x.shape[1]):
+            s = int(starts[bi, li])
+            lo, hi = max(s, 0), min(s + out_width, width)
+            if hi > lo:
+                out[bi, li, ..., lo - s:hi - s] = x[bi, li, ..., lo:hi]
+    return out
+
+
+# (shape of x, start range, out_width, border): in-range starts as the
+# padded planner emits them, negative starts, starts past the row end,
+# and a (B, L, C, W) channel slab that shares one start per line.
+_SHIFT_CASES = {
+    'in_range': ((3, 64, 1536), (0, 512), 400, 0.0),
+    'negative_starts': ((2, 48, 300), (-350, 0), 256, 7.0),
+    'past_row': ((2, 48, 300), (200, 700), 256, -1.0),
+    'channel_slab': ((3, 40, 3, 320), (-40, 200), 288, 0.5),
+}
+
+
+@pytest.mark.parametrize('case', sorted(_SHIFT_CASES))
+def test_row_shift(case):
+    shape, (lo, hi), ow, border = _SHIFT_CASES[case]
     rng = np.random.default_rng(0)
-    b, l, m, ow = 3, 256, 1536, 400
-    x = jnp.asarray(rng.random((b, l, m), dtype=np.float32))
-    starts = jnp.asarray(rng.integers(0, m - 1024, (b, l)), dtype=np.int32)
-    out = np.asarray(row_shift_auto(x, starts, ow))
-    j = np.arange(ow)
-    ref = np.take_along_axis(
-        np.asarray(x), np.asarray(starts)[:, :, None] + j[None, None, :], axis=2
-    )
-    assert np.array_equal(out, ref)
+    x = rng.random(shape, dtype=np.float32)
+    starts = rng.integers(lo, hi, shape[:2]).astype(np.int32)
+    out = np.asarray(row_shift(jnp.asarray(x), jnp.asarray(starts), ow,
+                               border_value=border))
+    ref = _row_shift_ref(x, starts, ow, border)
+    assert out.shape == ref.shape
+    assert np.array_equal(out, ref.astype(np.float32))
+
+
+def test_row_shift_large_batch():
+    """Thousands of rows in one call (region flatten stacks), mixed-sign
+    starts and a border fill: equal to the per-row reference."""
+    rng = np.random.default_rng(1)
+    b, l, c, iw, ow = 600, 128, 2, 300, 256
+    x = rng.random((b, l, c, iw), dtype=np.float32)
+    starts = rng.integers(-40, 200, (b, l)).astype(np.int32)
+    out = np.asarray(row_shift(jnp.asarray(x), jnp.asarray(starts), ow,
+                               border_value=0.5))
+    rows = [0, 109, 599]
+    ref = _row_shift_ref(x[rows], starts[rows], ow, 0.5)
+    assert np.array_equal(out[rows], ref.astype(np.float32))
+
+
+def _hat_sum_ref(x, base, pos, taps, border_value):
+    """The ``taps``-long hat-weight sum from each block's integer base:
+    out[j] = sum_t max(1 - |u - t|, 0) * src[b + p + t], u = pos - (b + p),
+    for output j = 128 * blk + p and b the 8-line group's base."""
+    n, l, c, width = x.shape
+    jp = pos.shape[-1]
+    xb = np.asarray(x, dtype=np.float64)
+    out = np.zeros((n, l, c, jp))
+    p = np.arange(128)
+    for ni in range(n):
+        for li in range(l):
+            for blk in range(jp // 128):
+                b = int(base[ni, li // 8, blk])
+                u = pos[ni, li, blk * 128:(blk + 1) * 128] - (b + p)
+                acc = np.zeros((c, 128))
+                for t in range(taps):
+                    w = np.maximum(1.0 - np.abs(u - t), 0.0)
+                    idx = b + p + t
+                    ok = (idx >= 0) & (idx < width)
+                    src = np.where(
+                        ok[None], xb[ni, li][:, np.clip(idx, 0, width - 1)],
+                        border_value,
+                    )
+                    acc += src * w[None]
+                out[ni, li, :, blk * 128:(blk + 1) * 128] = acc
+    return out
+
+
+@pytest.mark.parametrize('taps', [6, 32])
+def test_banded_resample_equals_hat_sum(taps):
+    """Wherever the planner's band guarantee holds (pos - (base + p) in
+    [0, taps-2]) the two-neighbour interpolation equals the hat-weight
+    sum, including blocks whose taps run off either end of the row."""
+    rng = np.random.default_rng(taps)
+    n, l, c, width, jp = 2, 12, 3, 200, 256
+    x = rng.random((n, l, c, width)).astype(np.float32) * 255.0
+    base = rng.integers(-60, width - 60, (n, -(-l // 8), jp // 128))
+    p = np.arange(jp) % 128
+    b_full = np.repeat(np.repeat(base, 8, axis=1)[:, :l], 128, axis=2)
+    pos = (b_full + p[None, None, :]
+           + rng.uniform(0.0, taps - 2, (n, l, jp))).astype(np.float32)
+    out = np.asarray(banded_line_resample(
+        jnp.asarray(x), jnp.asarray(base, jnp.int32), jnp.asarray(pos),
+        taps, border_value=9.0,
+    ))
+    ref = _hat_sum_ref(x, base, pos.astype(np.float64), taps, 9.0)
+    assert out.shape == (n, l, c, jp)
+    np.testing.assert_allclose(out, ref, atol=2e-3, rtol=0)
 
 
 def _fwd_mat(h, w, angle_deg, scale=1.0, tx=0.0, ty=0.0, shear=0.0):
@@ -101,34 +191,3 @@ def test_area_resize_upscale_matches_cv2():
         mine = resize_np(img, dsize, Interpolation.AREA)
         ref = cv2.resize(img, (dsize[1], dsize[0]), interpolation=cv2.INTER_AREA)
         assert np.abs(mine.astype(int) - ref.astype(int)).max() <= 1
-
-
-def test_row_shift_smem_chunking():
-    """Batches whose (B, L) starts array exceeds the SMEM prefetch budget
-    must chunk along B (region flatten stacks thousands of rows — the
-    unchunked call failed server-side with 'would exceed memory
-    (space=smem)' on v5e).  Chunked output must equal the per-row gather."""
-    from vkit_tpu.ops.pallas_kernels import (
-        _SMEM_STARTS_ELEMS,
-        _b_chunks,
-        row_shift_window_slab,
-    )
-
-    rng = np.random.default_rng(1)
-    b, l, c, iw, ow = 600, 128, 2, 300, 256
-    assert b * l > _SMEM_STARTS_ELEMS  # would have overflowed SMEM
-    assert len(_b_chunks(b, l)) > 1
-    x = jnp.asarray(rng.random((b, l, c, iw), dtype=np.float32))
-    starts = rng.integers(-40, 200, (b, l))
-    out = np.asarray(row_shift_window_slab(
-        x, jnp.asarray(starts, jnp.int32), ow, border_value=0.5
-    ))
-    xs = np.asarray(x)
-    for bi in (0, 109, 599):  # rows spanning several chunks
-        for li in (0, 63, 127):
-            s = int(starts[bi, li])
-            ref = np.full((c, ow), 0.5, np.float32)
-            lo, hi = max(s, 0), min(s + ow, iw)
-            if hi > lo:
-                ref[:, lo - s:hi - s] = xs[bi, li, :, lo:hi]
-            assert np.array_equal(out[bi, li], ref), (bi, li)

@@ -170,7 +170,7 @@ def test_chunked_flatten_matches_single_chunk(planner, monkeypatch):
     """Forcing the multi-chunk flatten path (tiny per-chunk budget) must
     reproduce the single-chunk result exactly: an 8-page full-content
     batch stacks thousands of regions, and one whole-bucket program
-    materialized a 25.8 GB intermediate on v5e — the chunked path is the
+    materialized a 25.8 GB intermediate — the chunked path is the
     production path, so pin its equivalence here."""
     from vkit_tpu.synth import region as region_mod
     from vkit_tpu.synth import synthesize_page_batch

@@ -37,6 +37,30 @@ def test_process_pool_produces_and_cleans_up():
     assert not pool.workers
 
 
+def _worker_platforms(worker_idx, rng, config):
+    import os
+
+    return os.environ.get('JAX_PLATFORMS')
+
+
+def test_process_pool_workers_hide_the_device(monkeypatch):
+    """Process workers start on the CPU platform whatever the parent
+    runs on, and the parent's environment is left as it was."""
+    monkeypatch.setenv('JAX_PLATFORMS', 'cuda')
+    pool = Pool(
+        PoolConfig(inventory=2, num_processes=1, rng_seed=3, timeout=120,
+                   use_processes=True),
+        _worker_platforms,
+    )
+    try:
+        assert pool.run() == 'cpu'
+    finally:
+        pool.cleanup()
+    import os
+
+    assert os.environ['JAX_PLATFORMS'] == 'cuda'
+
+
 def _flaky(worker_idx, rng, config):
     value = float(rng.random())
     if value < 0.5:

@@ -80,7 +80,7 @@ def measure_reference_random_distortion(num_seeds: int, side: int):
     )
 
     random_distortion = random_distortion_factory.create({
-        # Same default the TPU pipeline uses.
+        # Same default the device pipeline uses.
         'disabled_policy_names': ['defocus_blur', 'zoom_in_blur'],
     })
 

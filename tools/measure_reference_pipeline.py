@@ -2,7 +2,7 @@
 
 The reference (vkit @ /root/reference) runs via tools/refshims — including
 PIL-backed freetype, first-party barcode/rectpack/faker stand-ins — over
-the same synthetic assets the TPU synth bench uses
+the same synthetic assets the device synth bench uses
 (tests/pipeline/fixtures.build_assets: DejaVu fonts, corpus lines, bg and
 symbol images, ASCII lexicon).  This produces the legitimate
 samples-per-second baseline for bench config 6 (the full page-synthesis

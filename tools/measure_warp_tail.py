@@ -21,7 +21,7 @@ sys.path.insert(0, str(REPO))
 
 import jax  # noqa: E402
 
-if __name__ == '__main__' and '--tpu' not in sys.argv:
+if __name__ == '__main__' and '--device' not in sys.argv:
     jax.config.update('jax_platforms', 'cpu')
 
 import jax.numpy as jnp  # noqa: E402

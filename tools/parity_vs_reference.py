@@ -113,8 +113,8 @@ def main():
     import vkit.element as ref_element
     import vkit.mechanism.distortion as ref_distortion
 
-    import vkit_tpu.element as tpu_element
-    import vkit_tpu.mechanism.distortion as tpu_distortion
+    import vkit_tpu.element as our_element
+    import vkit_tpu.mechanism.distortion as our_distortion
 
     rng = np.random.default_rng(7)
     mat = rng.integers(0, 256, (160, 200, 3), dtype=np.uint8)
@@ -123,31 +123,31 @@ def main():
     worst = 0.0
     for name, config, is_geometric in CASES:
         ref_cfg = config if config is not None else mls_config(ref_element)
-        tpu_cfg = config if config is not None else mls_config(tpu_element)
+        our_cfg = config if config is not None else mls_config(our_element)
 
         ref_img = getattr(ref_distortion, name).distort_image(
             ref_cfg, ref_element.Image(mat=mat.copy()),
             rng=np.random.default_rng(3),
         )
-        tpu_img = getattr(tpu_distortion, name).distort_image(
-            tpu_cfg, tpu_element.Image(mat=mat.copy()),
+        our_img = getattr(our_distortion, name).distort_image(
+            our_cfg, our_element.Image(mat=mat.copy()),
             rng=np.random.default_rng(3),
         )
 
-        if ref_img.shape != tpu_img.shape:
-            h = min(ref_img.height, tpu_img.height)
-            w = min(ref_img.width, tpu_img.width)
-            dh = abs(ref_img.height - tpu_img.height)
-            dw = abs(ref_img.width - tpu_img.width)
+        if ref_img.shape != our_img.shape:
+            h = min(ref_img.height, our_img.height)
+            w = min(ref_img.width, our_img.width)
+            dh = abs(ref_img.height - our_img.height)
+            dw = abs(ref_img.width - our_img.width)
             assert dh <= 2 and dw <= 2, (
-                f'{name}: shapes diverge {ref_img.shape} vs {tpu_img.shape}'
+                f'{name}: shapes diverge {ref_img.shape} vs {our_img.shape}'
             )
             a = ref_img.mat[:h, :w]
-            b = tpu_img.mat[:h, :w]
-            shape_note = f'{ref_img.shape}~{tpu_img.shape}'
+            b = our_img.mat[:h, :w]
+            shape_note = f'{ref_img.shape}~{our_img.shape}'
         else:
-            a, b = ref_img.mat, tpu_img.mat
-            shape_note = str(tpu_img.shape)
+            a, b = ref_img.mat, our_img.mat
+            shape_note = str(our_img.shape)
 
         if is_geometric:
             # Compare interiors: border taps + grid-edge coverage differ.

@@ -1,9 +1,10 @@
-"""vkit_tpu — TPU-native synthetic-data framework for document OCR.
+"""vkit_tpu — accelerator-batched synthetic-data framework for document OCR.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability set of vkit-x/vkit
-(reference layout: utility / element / mechanism / engine / pipeline).  Dense
-per-pixel work runs batched on TPU; the host keeps label algebra (backed by a
-first-party C++ geometry library), font/corpus I/O, and pipeline assembly.
+A ground-up JAX/XLA rebuild of the capability set of vkit-x/vkit (reference
+layout: utility / element / mechanism / engine / pipeline).  Dense per-pixel
+work runs batched on the accelerator (an NVIDIA GPU); the host keeps label
+algebra (backed by a first-party C++ geometry library), font/corpus I/O, and
+pipeline assembly.
 """
 
 __version__ = '0.1.0'

@@ -4,14 +4,19 @@ The reference is a data-synthesis toolkit with no bundled model; its
 pipeline emits char masks, char-height score maps, gaussian centroid score
 maps and regression labels (vkit/pipeline/text_detection/
 page_text_region_label.py) for a downstream "adaptive scaling" detector.
-This module supplies that consumer, TPU-first: a conv-FPN in flax with
-bfloat16 compute on the MXU, static shapes, and three dense heads aligned
-with the pipeline's downsampled labels (stride 2).
+This module supplies that consumer: a conv-FPN in flax with bfloat16
+compute, static shapes, and three dense f32 heads aligned with the
+pipeline's downsampled labels (stride 2).
 """
 from typing import Sequence, Tuple
 
 import flax.linen as nn
 import jax.numpy as jnp
+from jax import lax
+
+# The f32 heads are 1x1 convs with one output channel: full f32 costs
+# nothing there and keeps their outputs off TF32 rounding.
+_HEAD_PRECISION = lax.Precision.HIGHEST
 
 
 class ConvBlock(nn.Module):
@@ -67,7 +72,13 @@ class TextDetectionNet(nn.Module):
             )
 
         y = y.astype(jnp.float32)
-        char_mask_logits = nn.Conv(1, (1, 1), dtype=jnp.float32)(y)
-        char_height_raw = nn.Conv(1, (1, 1), dtype=jnp.float32)(y)
-        char_gaussian_logits = nn.Conv(1, (1, 1), dtype=jnp.float32)(y)
+        char_mask_logits = nn.Conv(
+            1, (1, 1), dtype=jnp.float32, precision=_HEAD_PRECISION
+        )(y)
+        char_height_raw = nn.Conv(
+            1, (1, 1), dtype=jnp.float32, precision=_HEAD_PRECISION
+        )(y)
+        char_gaussian_logits = nn.Conv(
+            1, (1, 1), dtype=jnp.float32, precision=_HEAD_PRECISION
+        )(y)
         return char_mask_logits, char_height_raw, char_gaussian_logits

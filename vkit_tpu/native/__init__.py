@@ -2,52 +2,78 @@
 
 The reference's host-side hot loops live in native libraries (OpenCV
 rasterization/contours, GEOS, Clipper); this package is the first-party
-equivalent.  The shared library builds on first import (g++, ~1s) and is
-cached next to the source; any failure falls back to the pure-python
-implementations in vkit_tpu/geometry/_numpy_impl.py.
+equivalent.  The shared library is built from ``geometry.cpp`` on the
+machine that loads it (g++, ~1 s on first import) into ``build/``, under a
+name keyed by the source hash, the compile flags and the host, so a
+library built elsewhere is never reused.  If g++ is missing or the build
+fails, the pure-python implementations in vkit_tpu/geometry/_numpy_impl.py
+take over and ``load_library`` returns None.
 """
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Optional
 
 logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / 'geometry.cpp'
-_LIB = Path(__file__).resolve().parent / 'libvkitgeom.so'
+_BUILD_DIR = Path(__file__).resolve().parent / 'build'
+# Portable code generation: no -march=native, so the library matches any
+# x86-64 host it is built on; FP contraction off keeps results bit-stable.
+_FLAGS = ('-O3', '-ffp-contract=off', '-funroll-loops', '-shared', '-fPIC')
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> bool:
+def library_path() -> Path:
+    """Where this host's build of the geometry library lives."""
+    key = hashlib.sha256(
+        _SRC.read_bytes()
+        + ' '.join(_FLAGS).encode()
+        + f'{platform.node()}|{platform.machine()}'.encode()
+    ).hexdigest()[:16]
+    return _BUILD_DIR / f'libvkitgeom-{key}.so'
+
+
+def _build(target: Path) -> bool:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    # Build under a private name, then rename: concurrent importers (test
+    # workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=target.parent)
+    os.close(fd)
     try:
         subprocess.run(
-            [
-                'g++', '-O3', '-march=native', '-ffp-contract=off', '-funroll-loops',
-                '-shared', '-fPIC', str(_SRC), '-o', str(_LIB),
-            ],
+            ['g++', *_FLAGS, str(_SRC), '-o', tmp],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, target)
         return True
-    except Exception:  # noqa: BLE001
+    except (OSError, subprocess.SubprocessError):
         logger.exception('native geometry build failed; using numpy fallback')
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def load_library() -> Optional[ctypes.CDLL]:
-    """Build (if stale) and load the geometry library; None on failure."""
+    """Build (if this host has no build yet) and load the geometry
+    library; None when it cannot be built or loaded."""
     global _lib
     if _lib is not None:
         return _lib
     if os.environ.get('VKIT_TPU_DISABLE_NATIVE'):
         return None
-    if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-        if not _build():
-            return None
+    target = library_path()
+    if not target.exists() and not _build(target):
+        return None
     try:
-        lib = ctypes.CDLL(str(_LIB))
+        lib = ctypes.CDLL(str(target))
     except OSError:
         logger.exception('native geometry load failed; using numpy fallback')
         return None

@@ -1,4 +1,4 @@
-"""Device kernel library (jnp / Pallas) + host twins.
+"""Device kernel library (jnp / lax) + host twins.
 
 Submodules that must stay jax-free (imported by the host element layer):
 ``resize_taps``, ``colorspace_np``.  Everything else may import jax.

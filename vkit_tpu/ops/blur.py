@@ -2,8 +2,7 @@
 
 Capability parity: cv2.GaussianBlur / cv2.filter2D at
 vkit/mechanism/distortion/photometric/blur.py:46,65,118,181.  Border mode is
-REFLECT_101 (cv2's default).  Convolutions run via lax depthwise conv —
-XLA fuses these onto the TPU conv units.
+REFLECT_101 (cv2's default).  Convolutions run via lax depthwise conv.
 """
 import functools
 import math
@@ -11,6 +10,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from .common import expand_chw, round_u8
@@ -94,6 +94,7 @@ def _depthwise_conv2d(image4, kernel2d, padding='REFLECT'):
         padding='VALID',
         dimension_numbers=('NHWC', 'HWIO', 'NHWC'),
         feature_group_count=channels,
+        precision=lax.Precision.HIGHEST,
     )
 
 

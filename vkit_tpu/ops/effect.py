@@ -3,14 +3,15 @@ diamond-square fog field.
 
 Capability parity: vkit/mechanism/distortion/photometric/effect.py:26-216
 (cv.imencode/imdecode JPEG roundtrip, pixelation, fog).  JPEG is simulated
-on-device: RGB→YCbCr, 4:2:0 chroma subsampling, 8×8 DCT (as matmuls on the
-MXU), quantization with libjpeg-style quality-scaled tables, inverse.
+on-device: RGB→YCbCr, 4:2:0 chroma subsampling, 8×8 DCT (as batched
+matmuls), quantization with libjpeg-style quality-scaled tables, inverse.
 """
 import functools
 import math
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from .common import round_u8, to_f32
@@ -83,10 +84,12 @@ def _quantize_channel(channel, qtable):
     height, width = channel.shape
     dct = jnp.asarray(_dct_matrix())
     y = (channel - 128.0).reshape(height // 8, 8, width // 8, 8)
-    coeffs = jnp.einsum('ij,ajbk,lk->aibl', dct, y, dct)
+    coeffs = jnp.einsum('ij,ajbk,lk->aibl', dct, y, dct,
+                        precision=lax.Precision.HIGHEST)
     q = jnp.asarray(qtable, dtype=jnp.float32)[None, :, None, :]
     coeffs = jnp.round(coeffs / q) * q
-    restored = jnp.einsum('ji,ajbk,kl->aibl', dct, coeffs, dct)
+    restored = jnp.einsum('ji,ajbk,kl->aibl', dct, coeffs, dct,
+                          precision=lax.Precision.HIGHEST)
     return restored.reshape(height, width) + 128.0
 
 

@@ -7,15 +7,15 @@ is resized to its layout box and alpha-blended onto the page
 page_assembler.py text-line fill).  That is thousands of tiny numpy ops
 per page.
 
-The TPU-native form is ONE compiled program per page batch:
+The device form is ONE compiled program per page batch:
 
   - glyph ink lives in a device-resident atlas, (V, T, T) float32 alpha,
     one fixed-size tile per distinct (font, size, char);
   - a placement table (struct-of-arrays, padded to a bucket size) lists
     every glyph quad: atlas id, batch sample, destination box, color;
   - a `lax.scan` walks the table; each step rescales the tile to its
-    destination box with bilinear TAP-WEIGHT MATMULS (no gathers — the
-    (S, T) one-hot weight matrices ride the MXU) and alpha-blends the
+    destination box with bilinear TAP-WEIGHT MATMULS (no gathers; the
+    (S, T) weight matrices are built from traced scales) and alpha-blends the
     S x S patch into the canvas via dynamic_update_slice.
 
 Static shapes throughout: tiles are atlas-uniform, destination patches are
@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 class GlyphPlacements(NamedTuple):
@@ -130,6 +131,13 @@ def _resample_weights(out_len: int, tap_len: int, src_extent, dst_extent):
     return weights * row_gate[:, None]
 
 
+def _resample_tile(w_y, tile, w_x):
+    """``w_y @ tile @ w_x.T`` over the tile's two leading axes, in full
+    f32: glyph alpha and paint are pixels the parity bounds hold."""
+    return jnp.einsum('st,tu...,vu->sv...', w_y, tile, w_x,
+                      precision=lax.Precision.HIGHEST)
+
+
 @functools.partial(jax.jit, static_argnames=('out_tile',))
 def composite_glyphs(
     canvas,
@@ -164,7 +172,7 @@ def composite_glyphs(
         tile = jax.lax.dynamic_index_in_dim(tiles, glyph_id, 0, keepdims=False)
         w_y = _resample_weights(s, tap, src_h, dst_h)
         w_x = _resample_weights(s, tap, src_w, dst_w)
-        alpha = (w_y @ tile @ w_x.T) * valid
+        alpha = _resample_tile(w_y, tile, w_x) * valid
         alpha = jnp.clip(alpha, 0.0, 1.0)[:, :, None]
 
         start = (sample_id, up + s, left + s, 0)
@@ -233,9 +241,9 @@ def composite_patches(
         )
         w_y = _resample_weights(s, tap, src_h, dst_h)
         w_x = _resample_weights(s, tap, src_w, dst_w)
-        alpha = (w_y @ tile @ w_x.T) * valid
+        alpha = _resample_tile(w_y, tile, w_x) * valid
         alpha = jnp.clip(alpha, 0.0, 1.0)[:, :, None]
-        rgb = jnp.einsum('st,tuc,vu->svc', w_y, tile_rgb, w_x)
+        rgb = _resample_tile(w_y, tile_rgb, w_x)
         paint = color[None, None, :] * (1.0 - use_rgb) + rgb * use_rgb
 
         start = (sample_id, up + s, left + s, 0)
@@ -291,7 +299,7 @@ def accumulate_glyph_alpha(
         tile = jax.lax.dynamic_index_in_dim(tiles, glyph_id, 0, keepdims=False)
         w_y = _resample_weights(s, tap, src_h, dst_h)
         w_x = _resample_weights(s, tap, src_w, dst_w)
-        alpha = jnp.clip((w_y @ tile @ w_x.T) * valid, 0.0, 1.0)
+        alpha = jnp.clip(_resample_tile(w_y, tile, w_x) * valid, 0.0, 1.0)
         start = (sample_id, up + s, left + s)
         region = jax.lax.dynamic_slice(carry, start, (1, s, s))[0]
         carry = jax.lax.dynamic_update_slice(
@@ -355,8 +363,8 @@ def composite_patches_and_alpha(
         )
         w_y = _resample_weights(s, tap, src_h, dst_h)
         w_x = _resample_weights(s, tap, src_w, dst_w)
-        alpha = jnp.clip((w_y @ tile @ w_x.T) * valid, 0.0, 1.0)
-        rgb = jnp.einsum('st,tuc,vu->svc', w_y, tile_rgb, w_x)
+        alpha = jnp.clip(_resample_tile(w_y, tile, w_x) * valid, 0.0, 1.0)
+        rgb = _resample_tile(w_y, tile_rgb, w_x)
         paint = color[None, None, :] * (1.0 - use_rgb) + rgb * use_rgb
 
         start = (sample_id, up + s, left + s, 0)

@@ -5,20 +5,21 @@ behavioral spec vkit/pipeline/text_detection/page_text_region.py:561-858)
 rotates every flattened text region to horizontal and resizes it to a
 target char height — per-region host warps in the reference.  Here the
 rotate+resize compose into ONE affine matrix per region and the whole
-region batch runs through the two-shear MXU warp (ops/warp_mxu.py) in a
+region batch runs through the two-shear warp (ops/warp_mxu.py) in a
 single program; uniform tile canvases keep shapes static.
 
 The per-char gaussian heatmaps (engine/char_heatmap/default.py, spec
 vkit/engine/char_heatmap/default.py:30-195 + page_text_region_label.py:443)
 warp a gaussian bump into each char quad — per-char cv.warpPerspective in
 the reference.  The device form evaluates the bump ANALYTICALLY at the
-inverse-homography coordinates (elementwise math on the MXU-free VPU
-path, no gathers): one program for every char tile.
+inverse-homography coordinates (elementwise math, no gathers): one
+program for every char tile.
 """
 from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 
@@ -121,7 +122,7 @@ def batch_flatten_regions(
     return_mats: bool = False,
 ):
     """Rotate+scale every (src_tile, src_tile, C) region patch in ONE
-    two-shear MXU program -> (R, dst_tile, dst_tile, C) float32.
+    two-shear program -> (R, dst_tile, dst_tile, C) float32.
 
     Returns (warped, extents (R, 2) (h, w)): content occupies
     [:eh, :ew] of each dst tile.  With ``return_mats`` also the (R, 3, 3)
@@ -219,6 +220,7 @@ def char_heatmap_tiles(
         mats_inv,
         jnp.stack([jnp.broadcast_to(xs, (t, t)),
                    jnp.broadcast_to(ys, (t, t)), ones]),
+        precision=lax.Precision.HIGHEST,
     )
     w = jnp.where(jnp.abs(uvw[:, 2]) < 1e-9, 1e-9, uvw[:, 2])
     u = uvw[:, 0] / w

@@ -1,14 +1,14 @@
-"""Device-side resize: separable tap matrices on the MXU.
+"""Device-side resize: separable tap matrices as two matmuls.
 
 ``out = W_rows @ img @ W_cols.T`` — the same weight matrices as the host path
-(vkit_tpu/ops/resize_taps.py) applied as two matmuls, which XLA maps straight
-onto the MXU.  Weight construction is host-side numpy (static shapes under
+(vkit_tpu/ops/resize_taps.py) applied as two full-f32 matmuls.  Weight construction is host-side numpy (static shapes under
 jit, cached per (src, dst, interp)).
 """
 import functools
 from typing import Tuple
 
 import jax.numpy as jnp
+from jax import lax
 
 from .common import expand_chw, round_u8
 from .resize_taps import Interpolation, build_resize_weights
@@ -40,8 +40,10 @@ def resize(
 
     x = image4.astype(jnp.float32)
     # (N, H, W, C) -> rows: contract H.
-    x = jnp.einsum('nhwc,vh->nvwc', x, w_rows)
-    x = jnp.einsum('nvwc,uw->nvuc', x, w_cols)
+    x = jnp.einsum('nhwc,vh->nvwc', x, w_rows,
+                   precision=lax.Precision.HIGHEST)
+    x = jnp.einsum('nvwc,uw->nvuc', x, w_cols,
+                   precision=lax.Precision.HIGHEST)
 
     if image.dtype == jnp.uint8:
         x = round_u8(x)

@@ -6,8 +6,9 @@ vkit/utility/opt.py:125-148): NEAREST, NEAREST_EXACT, LINEAR(_EXACT), CUBIC,
 AREA, LANCZOS4.
 
 Design: every separable resize is expressed as two dense weight matrices,
-``out = W_rows @ img @ W_cols.T``.  On TPU the same matrices drive the MXU
-(see vkit_tpu/ops/resize.py); on host this module applies them with numpy.
+``out = W_rows @ img @ W_cols.T``.  On the device the same matrices drive two
+matmuls (see vkit_tpu/ops/resize.py); on host this module applies them with
+numpy.
 This file must not import jax (the element layer depends on it).
 """
 from enum import Enum, unique
@@ -129,7 +130,7 @@ def build_resize_taps(
     """Sparse form of build_resize_weights: (idx, w), each (n_dst, T).
 
     ``out[i] = sum_t src[idx[i, t]] * w[i, t]``.  The dense matrix drives
-    the MXU on device; this drives the O(N^2 * T) host path (a dense
+    the device matmuls; this drives the O(N^2 * T) host path (a dense
     matmul at page sizes is O(N^3) — seconds at 2522^2).  Results are
     cached (read-only) — the same box/char sizes recur constantly.
     """

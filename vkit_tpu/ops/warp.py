@@ -7,9 +7,7 @@ vkit/mechanism/distortion/geometric/affine.py:40,43.
 Design: every geometric distortion in this framework canonicalizes to a
 backward displacement field (map_y, map_x): for each destination pixel, the
 source coordinate to sample.  One gather-based kernel serves affine,
-perspective, camera-model, and MLS warps.  The XLA lowering of the gather is
-already HBM-bandwidth-bound on TPU; a Pallas variant lives behind the same
-API for tile-local fields.
+perspective, camera-model, and MLS warps.
 
 Border semantics match cv2 BORDER_CONSTANT: each bilinear tap outside the
 source contributes the border value (per-tap masking, not post-hoc).
@@ -20,6 +18,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from .common import expand_chw, round_u8, to_f32
 
@@ -147,7 +146,8 @@ def affine_maps(trans_mat, dst_shape: Tuple[int, int]):
     grid_x, grid_y = jnp.meshgrid(xs, ys)
     ones = jnp.ones_like(grid_x)
     dst_pts = jnp.stack([grid_x, grid_y, ones], axis=-1)  # (H, W, 3)
-    src = dst_pts @ inv.T
+    # Source coordinates: full f32, since TF32 rounds them by ~1 px.
+    src = jnp.matmul(dst_pts, inv.T, precision=lax.Precision.HIGHEST)
     denom = src[..., 2]
     denom = jnp.where(jnp.abs(denom) < 1e-12, 1.0, denom)
     return src[..., 1] / denom, src[..., 0] / denom

@@ -2,11 +2,11 @@
 
 The reference applies distortions one image at a time on the CPU
 (vkit/mechanism/distortion/interface.py:214-310, one cv2 call per op).  The
-TPU-native path instead samples per-image parameters on the host (cheap,
+device path instead samples per-image parameters on the host (cheap,
 numpy) and runs the whole batch through a single traced program: geometric
-warp (two-pass shifts+matmuls, ops/warp_mxu.py — gather-free), photometric
-chain (contrast/brightness/noise fused elementwise), JPEG simulation (8x8
-DCT as MXU matmuls with per-sample quant tables), and the final resize
+warp (two-pass shifts+matmuls, ops/warp_mxu.py), photometric chain
+(contrast/brightness/noise fused elementwise), the bit-exact JPEG roundtrip
+(ops/jpeg_exact.py, per-sample quant tables), and the final resize
 (tap-weight matmuls).  Static shapes, no per-sample Python, everything
 fuses under jit.
 """
@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import Mesh, PartitionSpec
 from numpy.random import Generator as RandomGenerator
 
 from ..ops.common import round_u8, to_f32
@@ -38,7 +39,7 @@ from ..ops.warp_mxu import (
 
 class SynthesisParams(NamedTuple):
     """Struct-of-arrays, one row per sample; a valid jit input pytree."""
-    # Host-planned two-pass MXU warp (ops/warp_mxu.py).
+    # Host-planned two-pass warp (ops/warp_mxu.py).
     warp_plan: AffineWarpPlan
     # Forward 3x3 mats kept for label co-transform (transform_label_points).
     trans_mats: jnp.ndarray      # (N, 3, 3) f32
@@ -130,7 +131,7 @@ def synthesize_batch(
     """
     n, height, width = images.shape[:3]
 
-    # Geometric: the two-pass shifts+matmuls warp (no gathers).
+    # Geometric: the two-pass shifts+matmuls warp.
     x = apply_affine_warp(to_f32(images), params.warp_plan, warp_statics)
 
     # Photometric: contrast & brightness (fused elementwise).
@@ -159,6 +160,49 @@ def synthesize_batch(
         x = jax.vmap(lambda im: resize(im, out_shape, Interpolation.LINEAR))(x)
 
     return round_u8(x)
+
+
+def synthesize_with_labels(
+    images,
+    labels,
+    params: SynthesisParams,
+    key,
+    warp_statics: AffineWarpStatics,
+    out_shape: Optional[Tuple[int, int]] = None,
+):
+    """``synthesize_batch`` plus the label rasters (N, H, W, L) f32 warped
+    by the identical per-sample plan.  Returns (images u8, labels f32)."""
+    out = synthesize_batch(
+        images, params, key, warp_statics=warp_statics, out_shape=out_shape
+    )
+    return out, apply_affine_warp(labels, params.warp_plan, warp_statics)
+
+
+def shard_synthesis(
+    mesh: Mesh,
+    params: SynthesisParams,
+    warp_statics: AffineWarpStatics,
+    out_shape: Optional[Tuple[int, int]] = None,
+    axis: str = 'dp',
+):
+    """``synthesize_with_labels`` as one SPMD program over ``mesh``: the
+    images, labels and every params leaf are sharded on their batch axis
+    over ``axis``, the key is replicated, and each device generates its
+    own shard.  Shard k equals ``synthesize_with_labels`` run on shard k's
+    inputs alone (the noise draw depends only on the key and the shard's
+    shape).  ``params`` gives the pytree structure."""
+    spec = PartitionSpec(axis)
+    return jax.shard_map(
+        functools.partial(
+            synthesize_with_labels,
+            warp_statics=warp_statics, out_shape=out_shape,
+        ),
+        mesh=mesh,
+        in_specs=(spec, spec, jax.tree_util.tree_map(lambda _: spec, params),
+                  PartitionSpec()),
+        out_specs=(spec, spec),
+        check_vma=False,
+    )
 
 
 def transform_label_points(

@@ -1,11 +1,11 @@
 """Device mesh construction + sharding helpers.
 
 The reference scales via a multiprocessing pool pickling samples over pipes
-(vkit/utility/pool.py:101-218, vkit/pipeline/pool.py:27-96).  The TPU-native
+(vkit/utility/pool.py:101-218, vkit/pipeline/pool.py:27-96).  The device
 equivalent is SPMD over a ``jax.sharding.Mesh``: the batch axis is sharded
 over ``dp``, activation height over ``sp`` (XLA inserts halo exchanges for
-convs), and model channels over ``tp`` (XLA inserts all-reduces).  No NCCL /
-pipes — collectives ride ICI.
+convs), and model channels over ``tp`` (XLA inserts all-reduces, which it
+hands to NCCL on GPUs).  Generation itself needs only ``dp``.
 """
 import math
 from typing import Optional, Sequence, Tuple
@@ -75,9 +75,9 @@ def initialize_distributed(
     Falls back to env variables (JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID) and no-ops for a single process.
     Returns the number of processes.  Multi-host generation stays
-    embarrassingly parallel (SURVEY §2): the batch axis spans processes
-    over DCN, everything bandwidth-hungry stays within each host's ICI
-    mesh — make_multihost_mesh lays the axes out accordingly.
+    embarrassingly parallel (SURVEY §2): the batch axis spans processes,
+    everything bandwidth-hungry stays within each host — make_multihost_mesh
+    lays the axes out accordingly.
     """
     import os
 
@@ -104,42 +104,23 @@ def make_multihost_mesh(
 ) -> Mesh:
     """Mesh over ALL global devices with ``dcn_axis`` spanning processes.
 
-    Within a process the remaining axes factor over the local devices
-    (ICI); only the leading data axis crosses hosts, so collectives on
-    sp/tp never touch DCN.  Single-process runs reduce to make_mesh.
+    Within a process the remaining axes factor over the local devices;
+    only the data axis crosses processes, so collectives on sp/tp stay
+    inside a host.  Single-process runs reduce to make_mesh.
     """
     n_proc = jax.process_count()
     if n_proc <= 1:
         return make_mesh(axis_names=axis_names)
-    from jax.experimental import mesh_utils
-
     axis_names = tuple(axis_names)
     dcn_idx = axis_names.index(dcn_axis)
     local = jax.local_device_count()
-    per_process = list(factor_devices(local, len(axis_names) - 1))
-    mesh_shape = [1] * len(axis_names)
-    dcn_shape = [1] * len(axis_names)
-    dcn_shape[dcn_idx] = n_proc
-    rest = iter(sorted(per_process, reverse=True))
-    for i in range(len(axis_names)):
-        if i == dcn_idx:
-            continue
-        mesh_shape[i] = next(rest, 1)
-    mesh_shape[dcn_idx] = 1
-    try:
-        devices = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape, dcn_shape
-        )
-    except Exception:  # noqa: BLE001 - no slice topology (CPU dry runs)
-        devs = sorted(
-            jax.devices(),
-            key=lambda d: (d.process_index, getattr(d, 'id', 0)),
-        )
-        local_dims = [
-            mesh_shape[i] for i in range(len(axis_names)) if i != dcn_idx
-        ]
-        arr = np.asarray(devs).reshape((n_proc, *local_dims))
-        devices = np.moveaxis(arr, 0, dcn_idx)
+    local_dims = list(factor_devices(local, len(axis_names) - 1))
+    # Every card of a host reaches every other at the same rate, so the
+    # local axes need no topology-aware placement: process-major order,
+    # the process axis moved to ``dcn_axis``.
+    devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
+    arr = np.asarray(devs).reshape((n_proc, *local_dims))
+    devices = np.moveaxis(arr, 0, dcn_idx)
     return Mesh(devices, axis_names=axis_names)
 
 

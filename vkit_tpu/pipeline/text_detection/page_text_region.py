@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import attr
 import numpy as np
 from numpy.random import Generator as RandomGenerator
-from sklearn.neighbors import KDTree
+from scipy.spatial import cKDTree
 
 from ...element import (
     Box,
@@ -357,10 +357,10 @@ class TextRegionFlattener:
                 for idx in range(count)
             ], dtype=np.int32)
             typical_list = list(self.typical_indices)
-            kd_tree = KDTree(centers[typical_list])
+            kd_tree = cKDTree(centers[typical_list])
 
             # Round 1: the single nearest typical region, if it dominates.
-            _, nearest = kd_tree.query(centers[unresolved])
+            _, nearest = kd_tree.query(centers[unresolved], k=[1])
             still = []
             for pos, idx in enumerate(unresolved):
                 donor = typical_list[int(nearest[pos, 0])]
@@ -372,7 +372,10 @@ class TextRegionFlattener:
             # Round 2: any dominating typical region, nearest first.
             fallback = []
             if still:
-                _, ranked = kd_tree.query(centers[still], k=len(typical_list))
+                # A list of ranks keeps the result 2-D even for one donor.
+                _, ranked = kd_tree.query(
+                    centers[still], k=list(range(1, len(typical_list) + 1))
+                )
                 for pos, idx in enumerate(still):
                     for donor_pos in ranked[pos].tolist():
                         donor = typical_list[int(donor_pos)]
@@ -517,7 +520,7 @@ def flatten_text_regions_on_device(
     The host path resamples three times per region (flattening rotate,
     resize to the char-height band, optional post-rotate by a multiple of
     90°); rotations compose, so all three fold into ONE affine per region
-    and regions batch through the two-shear MXU program per source-tile
+    and regions batch through the two-shear program per source-tile
     bucket (ops/region.batch_flatten_regions).  Labels co-transform
     analytically through the same mats.  Output rasters differ from the
     host chain only by the single-resample filter shape; geometry and

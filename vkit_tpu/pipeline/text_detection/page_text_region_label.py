@@ -14,7 +14,7 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 import attr
 import numpy as np
 from numpy.random import Generator as RandomGenerator
-from sklearn.neighbors import KDTree
+from scipy.spatial import cKDTree
 
 from ...element import Box, Mask, Point, PointList, Polygon, ScoreMap
 from ...engine.char_heatmap import (
@@ -331,7 +331,7 @@ class PageTextRegionLabelStep(
                            rng: RandomGenerator) -> List[PageCharRegressionLabel]:
         cfg = self.config
         centers = PointList(p.get_center_point() for p in char_polygons)
-        kd_tree = KDTree(centers.to_np_array())
+        kd_tree = cKDTree(centers.to_np_array())
 
         labels: List[PageCharRegressionLabel] = []
         for char_idx, (polygon, center) in enumerate(zip(char_polygons, centers)):
@@ -357,7 +357,7 @@ class PageTextRegionLabelStep(
                 shape, rng,
             )
             # A deviate point must still be closest to its own char.
-            _, np_nearest = kd_tree.query(candidates.to_np_array())
+            _, np_nearest = kd_tree.query(candidates.to_np_array(), k=[1])
             own = (np_nearest[:, 0] == char_idx).tolist()
 
             kept = 0

@@ -299,7 +299,7 @@ class SynthPlanner:
         # Below-text layers (page_assembler.py order: background <- photos
         # <- barcodes <- decorative boxes), composited on host — small
         # irregular patches, exactly the work that does NOT belong on the
-        # MXU.  Text glyphs and the above-text layers ride the device
+        # device.  Text glyphs and the above-text layers ride the device
         # compositor instead.
         from ..element import Image as _Image
         if self.background_step is not None:

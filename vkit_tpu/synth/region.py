@@ -26,7 +26,7 @@ Behavioral spec: vkit/pipeline/text_detection/page_text_region.py:561-858
 (flatten + stack), page_text_region_label.py:443-716 (char regression +
 gaussian labels), page_text_region_cropping.py:36-110 (crops).  The
 host reference resamples every region three times and warps a gaussian
-bump raster per char; here each region is ONE resample on the MXU and
+bump raster per char; here each region is ONE batched resample and
 each bump is analytic.
 """
 import math

@@ -13,11 +13,11 @@ from .opt import (
 from .pool import Pool, PoolConfig
 from .structure import dyn_structure, get_generic_classes, is_attrs_class, read_json_file
 from .type import PathType
-from .profiling import (StepTimer, device_trace, enable_compilation_cache, tune_host_allocator)
-from .guard import (
-    ProgramSizeError,
+from .profiling import StepTimer, device_trace, tune_host_allocator
+from .compilation import (
     compile_count,
-    install_program_size_guard,
+    compile_seconds,
+    enable_compilation_cache,
+    install_compile_counter,
     recent_compile_names,
-    reset_compile_log,
 )

@@ -1,19 +1,23 @@
 """Sample-generation pool with inventory backpressure.
 
 Capability parity: vkit/utility/pool.py:31-243 (PoolWorkerProtocol, PoolConfig,
-Pool).  Re-designed for the TPU host: a data-generation *prefetch pump* whose
-backpressure semantics (inventory target, scheduled-count accounting,
+Pool).  Re-designed for an accelerator host: a data-generation *prefetch pump*
+whose backpressure semantics (inventory target, scheduled-count accounting,
 retry-on-exception) match the reference pool, but whose workers are either
 
-* threads (default; the dense work happens on the TPU device under jit, which
+* threads (default; the dense work happens on the device under jit, which
   releases the GIL, so threads overlap host prep with device compute), or
 * processes (``use_processes=True``; mirrors the reference multiprocessing
-  pool for pure-host workloads).
+  pool for pure-host workloads).  They start with ``JAX_PLATFORMS=cpu``:
+  a JAX process reserves most of an accelerator's memory when it first
+  touches it, so N workers must not each open the card the parent uses.
 
 Per-worker RNG streams derive from ``SeedSequence(seed).spawn(num_workers)``
 exactly like vkit/utility/pool.py:86-87.
 """
+import contextlib
 import logging
+import os
 import queue
 import threading
 from typing import Any, Callable, Generic, Optional, Protocol, TypeVar
@@ -93,6 +97,21 @@ def _process_worker_main(idx, seed_seq, func, config, out_queue):
         out_queue.put(item)  # Blocks at maxsize: the backpressure knob.
 
 
+@contextlib.contextmanager
+def _device_hidden_environ():
+    """Spawned children copy the parent's environment at start: hide the
+    accelerator from them for the duration of the starts."""
+    saved = os.environ.get('JAX_PLATFORMS')
+    os.environ['JAX_PLATFORMS'] = 'cpu'
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ['JAX_PLATFORMS']
+        else:
+            os.environ['JAX_PLATFORMS'] = saved
+
+
 class Pool(Generic[_T_ITEM]):
     """Bounded-inventory producer pool.
 
@@ -131,8 +150,13 @@ class Pool(Generic[_T_ITEM]):
                 _Worker(idx, seed_seqs[idx], func, worker_config, self.queue, self.stop_event)
                 for idx in range(config.num_processes)
             ]
-        for worker in self.workers:
-            worker.start()
+        if config.use_processes:
+            with _device_hidden_environ():
+                for worker in self.workers:
+                    worker.start()
+        else:
+            for worker in self.workers:
+                worker.start()
 
     def run(self) -> _T_ITEM:
         return self.queue.get(timeout=self.config.timeout)
